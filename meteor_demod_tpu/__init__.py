@@ -1,4 +1,4 @@
-"""meteor_demod_tpu — a TPU-native LRPT (Meteor-M2) demodulator framework.
+"""meteor_demod_tpu — an LRPT (Meteor-M2) demodulator for NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the classic coherent PSK receive
 chain (AGC -> RRC matched filter -> Costas carrier PLL -> Mueller & Muller
@@ -6,7 +6,7 @@ symbol timing), with the capabilities of the reference C implementation
 (dbdexter-dev/meteor_demod): QPSK 72k and interleaved OQPSK 80k modes, WAV or
 raw IQ input from files or stdin, 8-bit soft-symbol output, live telemetry,
 batch/TUI frontends — restructured as block-streaming functional kernels that
-scale over TPU device meshes.
+scale over device meshes.
 """
 
 __version__ = "0.1.0"

@@ -3,10 +3,10 @@
 A DemodConfig is hashable and immutable: it is the jit-static half of the
 demodulator. Everything data-dependent lives in DemodCarry (demod/state.py).
 
-Geometry notes (the TPU-native restructuring): the reference processes one
+Geometry notes (the block restructuring): the reference processes one
 sample at a time through stateful blocks (demod.c:23-48). Here a "block" is
 L input samples. The polyphase FIR produces all L*interp interpolated
-outputs ("ticks") of the block densely (MXU-friendly); the feedback loops
+outputs ("ticks") of the block densely (one batched conv); the feedback loops
 (timing NCO gate, AGC, Costas PLL, M&M retiming) all mutate state only when
 the timing gate fires — once per symbol (QPSK) or twice (OQPSK, demod.c:62-87)
 — so they run as a per-FIRE lax.scan of S steps, not a per-sample scan.
@@ -182,8 +182,8 @@ class DemodConfig:
         The gate fires at k* = min{k in [1, K] : fl(k*tf) >= fl(thresh - tp)}
         — a vectorized f32 multiply/compare with NO multiply-add pattern, so
         the result is bit-identical across numpy (scalar oracle), XLA (scan)
-        and Mosaic (kernel) regardless of FMA contraction. K is
-        max_ticks_per_step rounded up to a sublane tile."""
+        and the GPU kernel regardless of FMA contraction. K is
+        max_ticks_per_step rounded up to a multiple of 8."""
         return -(-self.max_ticks_per_step // 8) * 8
 
     @property
@@ -341,7 +341,7 @@ class DemodConfig:
         it — so each (W, B) one-hot select only needs its own slice, not
         the full union (which window_locked_asym must cover). Derivation
         mirrors _window_delta / window_locked_asym term for term; slices
-        are 8-row aligned (free static slicing in Mosaic). A fire
+        are 8-row aligned. A fire
         outside its slice trips
         FLAG_WINDOW_MISS -> exact oracle fallback, exactly like the full
         window's bounds check (the flag envelope is a few ticks tighter;

@@ -1,7 +1,7 @@
 """Compile-time defaults and loop constants of the LRPT demodulator.
 
 Parity notes: every constant here mirrors a #define in the reference
-implementation (cited per line) so that the TPU pipeline reproduces the
+implementation (cited per line) so that the device pipeline reproduces the
 reference's numeric behavior.
 """
 

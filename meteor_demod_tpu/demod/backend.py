@@ -1,10 +1,20 @@
-"""Recurrence-backend selection: Pallas kernel on TPU, XLA scan elsewhere.
+"""Recurrence-backend selection: the one place that picks the device path.
 
 Both backends share the contract
   demod(carry, x) -> (carry', BlockOutput)
 with a leading (batch,) axis on every carry leaf and x of shape
-(batch, block_len, 2) float32. `make_batch_demod` picks the fastest
-available implementation; callers can force one with `backend=`.
+(batch, block_len, 2) float32:
+
+- "kernel": the GPU recurrence kernel (kernels/recurrence.py), compiled
+  for the card. It has no CPU lowering.
+- "scan": the portable XLA `lax.scan` (demod/scan.py), vmapped over the
+  batch.
+- "kernel_interpret": the same kernel through the Pallas interpreter, so
+  CPU tests can drive every host path through it. `default_backend`
+  never picks it.
+
+`default_backend` picks the kernel on a GPU and the scan elsewhere;
+callers can force one with `backend=`.
 """
 
 from __future__ import annotations
@@ -17,83 +27,57 @@ import jax
 from ..config import DemodConfig
 from .scan import make_block_demod
 
+BACKENDS = ("scan", "kernel", "kernel_interpret")
+
 
 def default_backend() -> str:
-    return "pallas" if jax.devices()[0].platform == "tpu" else "scan"
+    """The measured-faster backend for this process's device (PERF.md,
+    kernel vs scan on the H100)."""
+    return "kernel" if jax.devices()[0].platform == "gpu" else "scan"
+
+
+def resolve_backend(backend: str) -> str:
+    if backend == "auto":
+        return default_backend()
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend
 
 
 @functools.lru_cache(maxsize=32)
 def make_batch_demod(cfg: DemodConfig, batch: int,
-                     backend: str = "auto",
-                     locked: bool = False) -> Callable:
-    """Batched block demodulator; backend in {'auto', 'scan', 'pallas'}.
-
-    locked=True builds the Pallas kernel's LOCKED-mode geometry (narrow
-    candidate window + verified offset gate — kernels/block_demod.py):
-    decision-identical to the wide program inside the locked envelope
-    (float values agree to cross-program FMA-fusion tolerance, a few
-    ULP), flags into the oracle fallback outside it. Hosts switch to it when every
-    stream is carrier-locked. A no-op for the scan backend (it has no
-    window geometry to narrow), so callers can request it unconditionally.
-    """
-    if backend == "auto":
-        backend = default_backend()
-    if backend == "pallas":
-        from ..kernels.block_demod import make_pallas_batch_demod
-        return make_pallas_batch_demod(cfg, batch, locked=locked)
+                     backend: str = "auto") -> Callable:
+    """Batched block demodulator; backend in {'auto'} + BACKENDS."""
+    backend = resolve_backend(backend)
     if backend == "scan":
         return jax.vmap(make_block_demod(cfg))
-    raise ValueError(f"unknown backend {backend!r}")
+    from ..kernels.recurrence import make_kernel_batch_demod
+    return make_kernel_batch_demod(
+        cfg, batch, interpret=backend == "kernel_interpret")
 
 
 @functools.lru_cache(maxsize=32)
 def jit_batch_demod(cfg: DemodConfig, batch: int,
-                    backend: str = "auto", locked: bool = False) -> Callable:
-    if backend == "auto":
-        backend = default_backend()
-    if backend == "scan":
-        locked = False                 # scan has no locked geometry
-    return jax.jit(make_batch_demod(cfg, batch, backend, locked))
+                    backend: str = "auto") -> Callable:
+    return jax.jit(make_batch_demod(cfg, batch, resolve_backend(backend)))
 
 
-def make_single_demod(cfg: DemodConfig, backend: str = "auto",
-                      locked: bool = False) -> Callable:
-    """Single-stream (no batch axis) block demodulator, unjitted.
-
-    On the Pallas backend the stream runs as ONE broadcast lane of the
-    128-wide DMA kernel: a B=1 kernel pays the full vreg op count for
-    1/128 lane occupancy (and falls back to gather windows — Mosaic needs
-    the lane dim 128-aligned to slice VMEM spans), so the wide kernel is
-    ~4x faster PER BLOCK for a single stream (measured 2.1 -> 8.4
-    Msamp/s sequential on chip, 37x real-time). The broadcast is in-graph (device-side;
-    the host uploads one (L, 2) block) and lane 0 is sliced back before
-    egress. All lanes compute identical values, so the result is the
-    same stream the B=1 program produces."""
-    if backend == "auto":
-        backend = default_backend()
+def make_single_demod(cfg: DemodConfig, backend: str = "auto") -> Callable:
+    """Single-stream (no batch axis) block demodulator, unjitted."""
+    backend = resolve_backend(backend)
     if backend == "scan":
         return make_block_demod(cfg)
-    import jax.numpy as jnp
-    B = 128
-    batched = make_batch_demod(cfg, B, backend, locked)
+    batched = make_batch_demod(cfg, 1, backend)
 
     def single(carry, x):
-        carry1 = jax.tree_util.tree_map(
-            lambda a: jnp.broadcast_to(a[None], (B,) + a.shape), carry)
-        carry2, outs = batched(carry1,
-                               jnp.broadcast_to(x[None], (B,) + x.shape))
-        return (jax.tree_util.tree_map(lambda a: a[0], carry2),
-                jax.tree_util.tree_map(lambda a: a[0], outs))
+        carry1, outs = batched(
+            jax.tree_util.tree_map(lambda a: a[None], carry), x[None])
+        return jax.tree_util.tree_map(lambda a: a[0], (carry1, outs))
 
     return single
 
 
 @functools.lru_cache(maxsize=32)
-def jit_single_demod(cfg: DemodConfig, backend: str = "auto",
-                     locked: bool = False) -> Callable:
+def jit_single_demod(cfg: DemodConfig, backend: str = "auto") -> Callable:
     """Single-stream (no batch axis) jitted block demodulator."""
-    if backend == "auto":
-        backend = default_backend()
-    if backend == "scan":
-        locked = False                 # scan has no locked geometry
-    return jax.jit(make_single_demod(cfg, backend, locked))
+    return jax.jit(make_single_demod(cfg, resolve_backend(backend)))

@@ -16,7 +16,7 @@ Timing-gate semantics (shared by all three implementations): the gate fires
 at candidate k* = min{k in [1, K] : fl(k*tf) >= fl(thresh - tp)} with
 K = cfg.gate_candidates; the phase then advances by fl(k* * tf) in one
 multiply+add. Every operation is a plain IEEE f32 multiply, subtract, add or
-compare — no multiply-add pattern — so numpy, XLA and Mosaic agree bitwise
+compare — no multiply-add pattern — so numpy, XLA and the kernel agree bitwise
 (FMA contraction cannot occur). This deliberately differs from the C
 reference's per-tick `_phase += _freq` accumulation (timing.c:31-38) by
 bounded rounding (<= K ulp per symbol period); parity with the C binary is

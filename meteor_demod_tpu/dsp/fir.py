@@ -1,17 +1,15 @@
 """Block polyphase RRC matched filter.
 
 The reference evaluates one 65-tap complex-by-real dot product per symbol
-from a circular delay line (filter.c:38-65) — its hot kernel. TPU-native
-restructuring: compute ALL interpolated outputs of a block densely as a 1-D
-correlation with `interp` output channels (overlap-save, the previous block's
-taps-1 samples carried as a halo), which XLA lowers onto the MXU/VPU as a
-batched convolution. The downstream symbol scan then just selects the ticks
-the timing gate fires on.
+from a circular delay line (filter.c:38-65) — its hot kernel. Here ALL
+interpolated outputs of a block are computed densely as a 1-D correlation
+with `interp` output channels (overlap-save, the previous block's taps-1
+samples carried as a halo), which XLA lowers as a batched convolution. The
+downstream recurrence then just reads the ticks the timing gate fires on.
 
-IQ layout: float32 (..., 2) re/im pairs, never complex64, device-side.
-Complex ops lower to real-pair arithmetic on TPU anyway, float32 arrays tile
-cleanly, and (on some PJRT backends) complex buffers cannot cross the
-host<->device boundary at all.
+IQ layout: float32 (..., 2) re/im pairs, never complex64, device-side:
+complex ops lower to real-pair arithmetic anyway, and float32 pairs are
+what the recurrence kernel gathers.
 
 F[s, p, :] equals the reference's filter_get(phase=p) evaluated right after
 sample s was pushed (filter.c:45-65): an oldest-first dot product of
@@ -32,32 +30,17 @@ def make_fir_banks(cfg) -> np.ndarray:
     return polyphase_rrc_banks(cfg.rrc_order, cfg.osf, cfg.rrc_alpha, cfg.interp)
 
 
-_FIR_CHUNK = 128
-
-
-def _toeplitz_weight(banks: np.ndarray, ch: int) -> np.ndarray:
-    """Banded (ch+taps-1, ch*interp) weight: W[u, s*interp+p] = banks[p, u-s]
-    for 0 <= u-s < taps, else 0. Built once at trace time (numpy)."""
-    interp, taps = banks.shape
-    u_len = ch + taps - 1
-    w = np.zeros((u_len, ch, interp), np.float32)
-    for s in range(ch):
-        w[s:s + taps, s, :] = banks.T
-    return w.reshape(u_len, ch * interp)
-
-
 def polyphase_fir_block(x: jnp.ndarray, tail: jnp.ndarray,
                         banks: np.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Dense polyphase FIR over one block.
 
-    Lowering: a 1-input-channel 65-tap conv maps poorly onto the MXU (XLA
-    runs it ~1 TFLOP/s-effective), so the correlation is computed as a
-    chunked Toeplitz MATMUL: 128 consecutive output samples share the
-    (128+taps-1)-sample input window, F_chunk = window @ W with W the
-    banded constant from _toeplitz_weight. The ~2/3 structural zeros in W
-    are free MXU padding, and x + 0 contributions cannot perturb rounding.
-    HIGHEST precision keeps full f32 accuracy (the FIR feeds the decision
-    path; golden parity vs the C binary needs ~1e-5 relative here).
+    Lowering: a 1-input-channel, `interp`-output-channel correlation
+    (conv_general_dilated, which XLA hands to cuDNN on a GPU). HIGHEST
+    precision keeps full f32 accuracy — without it a GPU may run the conv
+    in TF32 (~3 decimal digits), and the FIR feeds the decision path:
+    parity with the numpy oracle and the C binary needs ~1e-5 relative
+    here. The conv is also bitwise shape-independent on the CPU, which the
+    time-shard N-shard == 1-shard equality tests rely on.
 
     Args:
       x: (L, 2) float32 input samples (re, im).
@@ -72,98 +55,18 @@ def polyphase_fir_block(x: jnp.ndarray, tail: jnp.ndarray,
       new_tail: (taps-1, 2) float32.
     """
     interp, taps = np.shape(banks)
-    L = x.shape[0]
     xin = jnp.concatenate([tail, x])                      # (L + taps - 1, 2)
-    ch = _FIR_CHUNK
-    if L % ch or jax.default_backend() != "tpu":
-        # Conv lowering: odd lengths, and every non-TPU backend — the CPU
-        # conv is bitwise shape-independent, which the time-shard
-        # N-shard == 1-shard equality tests rely on; the chunked matmul
-        # below fixes its contraction order per chunk, which the MXU keeps
-        # shape-independent but LLVM does not.
-        lhs = xin.T[:, None, :]                           # (2, 1, L+taps-1)
-        rhs = jnp.asarray(banks)[:, None, :]              # (interp, 1, taps)
-        out = jax.lax.conv_general_dilated(
-            lhs, rhs,
-            window_strides=(1,),
-            padding="VALID",
-            dimension_numbers=("NCH", "OIH", "NCH"),
-            preferred_element_type=jnp.float32,
-        )                                                 # (2, interp, L)
-        return out.transpose(2, 1, 0), xin[-(taps - 1):]
-
-    k = L // ch
-    # Overlapping windows (k, ch+taps-1, 2) built from aligned reshapes —
-    # no gather: window j = xin[j*ch : j*ch + ch + taps - 1].
-    a = xin[:L].reshape(k, ch, 2)
-    ext = jnp.concatenate([a[1:, :taps - 1],
-                           xin[None, L:L + taps - 1]], axis=0)
-    win = jnp.concatenate([a, ext], axis=1)               # (k, U, 2)
-    wm = jnp.asarray(_toeplitz_weight(np.asarray(banks), ch))
-    out = jax.lax.dot_general(
-        win, wm, (((1,), (0,)), ((), ())),
+    lhs = xin.T[:, None, :]                               # (2, 1, L+taps-1)
+    rhs = jnp.asarray(banks)[:, None, :]                  # (interp, 1, taps)
+    out = jax.lax.conv_general_dilated(
+        lhs, rhs,
+        window_strides=(1,),
+        padding="VALID",
+        dimension_numbers=("NCH", "OIH", "NCH"),
         precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)               # (k, 2, ch*interp)
-    F = out.transpose(0, 2, 1).reshape(L, interp, 2)
-    new_tail = xin[-(taps - 1):]
-    return F, new_tail
-
-
-def polyphase_fir_block_tmajor(x: jnp.ndarray, tail_t: jnp.ndarray,
-                               banks: np.ndarray
-                               ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Batched FIR emitting the TICK-MAJOR layout the DMA-streaming kernel
-    consumes: Ft (T, 2, B) with T = L*interp (tick t = s*interp + p), re/im
-    split on the middle axis so the kernel can DMA one contiguous row span.
-
-    Args:
-      x: (L, B, 2) float32 — stream-minor input (one small transpose of the
-        raw block, instead of transposing the interp-times-larger FIR
-        output).
-      tail_t: (taps-1, B, 2) float32 delay-line carry.
-      banks: (interp, taps) float32.
-
-    Returns (Ft (T, 2, B), new_tail_t (taps-1, B, 2)).
-
-    TPU path: per 128-sample chunk, (O, U) @ (U, 2B) matmuls with the
-    banded Toeplitz weight (see polyphase_fir_block) stacked along the
-    chunk axis — the output IS tick-major, no post-transpose of the
-    interp-expanded array. Non-TPU falls back to the conv lowering (bitwise
-    identical F to polyphase_fir_block, which the kernel-vs-scan decision
-    tests rely on).
-    """
-    interp, taps = np.shape(banks)
-    L, Bb = x.shape[0], x.shape[1]
-    xin = jnp.concatenate([tail_t, x])                 # (L+taps-1, B, 2)
-    new_tail = xin[-(taps - 1):]
-    ch = _FIR_CHUNK
-    if L % ch or jax.default_backend() != "tpu":
-        Fb, _ = jax.vmap(
-            lambda xs, ts: polyphase_fir_block(xs, ts, banks),
-            in_axes=(1, 1))(x, tail_t)                 # (B, L, interp, 2)
-        Ft = Fb.reshape(Bb, L * interp, 2).transpose(1, 2, 0)
-        return Ft, new_tail
-    k = L // ch
-    u_len = ch + taps - 1
-    a = xin[:L].reshape(k, ch, Bb, 2)
-    ext = jnp.concatenate([a[1:, :taps - 1],
-                           xin[None, L:L + taps - 1]], axis=0)
-    win = jnp.concatenate([a, ext], axis=1)            # (k, U, B, 2)
-    winf = win.transpose(0, 1, 3, 2).reshape(k, u_len, 2 * Bb)
-    wm_t = jnp.asarray(_toeplitz_weight(np.asarray(banks), ch).T)  # (O, U)
-
-    def chunk_dot(_, rhs):
-        # (O, U) @ (U, 2B): the scan stacks chunk outputs on the leading
-        # axis, which IS the tick-major nesting — no output transpose, and
-        # the body compiles once regardless of the chunk count.
-        return None, jax.lax.dot_general(
-            wm_t, rhs, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32)        # (O, 2B)
-
-    _, out = jax.lax.scan(chunk_dot, None, winf)       # (k, O, 2B)
-    Ft = out.reshape(L * interp, 2, Bb)
-    return Ft, new_tail
+        preferred_element_type=jnp.float32,
+    )                                                     # (2, interp, L)
+    return out.transpose(2, 1, 0), xin[-(taps - 1):]
 
 
 def iq_to_f32(x: np.ndarray) -> np.ndarray:

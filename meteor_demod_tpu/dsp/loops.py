@@ -47,9 +47,10 @@ def lut_tanh_np(v):
     return TANH_TABLE[idx]
 
 
-def costas_error(re, im):
-    """Costas phase detector (pll.c:142-151)."""
-    return lut_tanh(re) * im - lut_tanh(im) * re
+def costas_error(re, im, tanh=lut_tanh):
+    """Costas phase detector (pll.c:142-151). `tanh` is the table lookup;
+    a kernel that cannot capture the table passes its own."""
+    return tanh(re) * im - tanh(im) * re
 
 
 def costas_error_np(re, im):

@@ -16,6 +16,7 @@ Max absolute error vs sin(x) is ~0.0021 (same as the reference).
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 Q_SHIFT = 14
@@ -30,9 +31,11 @@ _INV_Q = np.float32(1.0 / (1 << Q_SHIFT))
 def fast_sin(fx):
     """Parabolic sine approximation (sincos.c:12-34). fx: float32 array."""
     xi = (fx * _PHASE_SCALE).astype(jnp.int32)   # trunc toward zero, like C cast
-    x16 = xi.astype(jnp.int16)                   # wrap modulo 2**16
+    # Wrap modulo 2**16 (the C int16 cast) as a sign-extending shift pair,
+    # which every backend, kernels included, lowers without narrow types.
+    x16 = jax.lax.shift_right_arithmetic(jax.lax.shift_left(xi, 16), 16)
     sign = x16 < 0
-    x = (x16.astype(jnp.int32) & 0x7FFF) - (1 << Q_SHIFT)
+    x = (x16 & 0x7FFF) - (1 << Q_SHIFT)
     x2 = (x * x) >> Q_SHIFT
     y = _B - ((x2 * _C) >> Q_SHIFT)
     y = _A - ((x2 * y) >> Q_SHIFT)

@@ -1,8 +1,8 @@
 """Checkpoint / resume: serialize the demodulator state mid-stream.
 
 The reference has no checkpointing (SURVEY.md section 5) — its closest
-analogue is the partial-ring flush at EOF (main.c:321-322). In the TPU
-framework the scan carry (FIR delay-line tail, PLL phase/freq/err/locked,
+analogue is the partial-ring flush at EOF (main.c:321-322). Here the
+scan carry (FIR delay-line tail, PLL phase/freq/err/locked,
 timing phase/freq/prev, AGC gain/bias, OQPSK inphase/slot) IS a complete,
 exact checkpoint: demodulation resumed from a saved carry is sample-for-sample
 identical to an uninterrupted run. This module serializes that carry (plus

@@ -1,6 +1,7 @@
 """ctypes bindings for the native IO hot paths (native/meteor_io.cc).
 
-Auto-builds libmeteor_io.so with the system compiler on first use (the
+Auto-builds libmeteor_io.so with the system compiler on first use, and
+rebuilds it when native/meteor_io.cc is newer than the library (the
 reference's analogous code paths are C: wavfile.c:50-80, main.c:305-316);
 every function has a numpy fallback so the framework works without a
 toolchain. `available()` reports which path is active.
@@ -24,14 +25,23 @@ _lib = None
 _tried = False
 
 
+def _stale() -> bool:
+    """True when the library is missing or older than its source, so what
+    is loaded is always built from the committed native/meteor_io.cc."""
+    src = os.path.join(_NATIVE_DIR, "meteor_io.cc")
+    if not os.path.exists(_SO_PATH):
+        return True
+    return (os.path.exists(src)
+            and os.path.getmtime(src) > os.path.getmtime(_SO_PATH))
+
+
 def _load():
     global _lib, _tried
     with _lock:
         if _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO_PATH) and os.path.exists(
-                os.path.join(_NATIVE_DIR, "Makefile")):
+        if _stale() and os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")):
             try:
                 subprocess.run(["make", "-C", _NATIVE_DIR],
                                capture_output=True, timeout=60, check=True)

@@ -1,3 +1,1 @@
-from .block_demod import make_pallas_batch_demod
-
-__all__ = ["make_pallas_batch_demod"]
+"""Hand-written device kernels (see kernels/recurrence.py)."""

@@ -1,23 +1,14 @@
-"""ServingFleet: multi-group fleet serving with tau0-sorted banded groups.
+"""ServingFleet: multi-group fleet serving with tau0-sorted groups.
 
-A chip serves fleets far larger than one 128-lane dispatch (the r5 bench:
-one dispatch group runs ~5600x real-time, so a production fleet is many
-groups dispatched round-robin). The locked kernel's dominant per-step cost
-is the candidate-window select, and the window must fold every stream's
-first-fire offset tau0 — ceil(ticks_per_fire)+1 rows of dead coverage when
-streams land in a group at random (33 of W=72 at the hi-fi geometry).
+A card serves fleets larger than one dispatch group, so a production fleet
+is many FleetDemodulator groups dispatched round-robin.
 
-This host closes that fold: at the moment the fleet goes carrier-locked
-(the wide->locked switch — where the per-stream carries are already on the
-host for the switch decision), it SORTS streams by their predicted
-first-fire tick and renumbers them into dispatch groups, so each group
-spans a narrow tau0 band and dispatches the BANDED locked program
-(config.tau0_band: the window fold shrinks to band+1 rows and the kernel
-anchors its base at the dispatch's own minimum tau0 — measured +7.5% hi-fi
-/ +2.7% QPSK on chip, docs/PERF.md r5 close-outs). Groups whose achieved
-spread exceeds the band keep the plain locked program; streams that drift
-out of band flag into the exact oracle recovery (the usual correctness
-net) and a re-sort is scheduled — banding is a pure perf policy.
+At the moment the fleet goes carrier-locked, this host SORTS streams by
+their predicted first-fire tick and renumbers them into dispatch groups,
+so each group spans a narrow tau0 band (`use_banded` marks groups whose
+spread fits `band`). The recurrence on the current device path reads each
+fire directly (demod/backend.py has no candidate window to narrow), so the
+band selects no program: the sort and its flags are policy state only.
 
 Stream identity is preserved: inputs are routed group-wise through a
 host-side assignment and outputs return in the caller's original stream
@@ -25,8 +16,8 @@ order. Parked streams (FleetDemodulator's straggler policy) keep their
 lanes across re-sorts — only live streams are renumbered.
 
 Reference scope note: the reference is one process per stream
-(/root/reference/main.c:284-329); fleet serving and this grouping policy
-are TPU-native additions with no reference counterpart.
+(main.c:284-329); fleet serving and this grouping policy are additions
+with no reference counterpart.
 """
 
 from __future__ import annotations
@@ -47,8 +38,7 @@ def predict_tau0(cfg: DemodConfig, t_phase: np.ndarray,
                  t_freq: np.ndarray) -> np.ndarray:
     """Predicted first-fire tick of the next block per stream — the scan
     gate's closed form (demod/scan.py: fire at the smallest k with
-    k*t_freq >= 2*pi - t_phase; QPSK threshold). Must mirror the banded
-    kernel's own anchor computation (kernels/block_demod.py)."""
+    k*t_freq >= 2*pi - t_phase; QPSK threshold)."""
     diff = np.float32(2.0 * np.pi) - np.asarray(t_phase, np.float32)
     tau0 = np.ceil(diff / np.asarray(t_freq, np.float32))
     return np.maximum(tau0, 1.0).astype(np.int64)
@@ -73,8 +63,8 @@ class ServingFleet:
         self.n_groups = n_streams // group_size
         self.mesh = mesh if mesh is not None else make_mesh(
             axis_name=axis_name)
-        # Banding is a QPSK-geometry kernel feature (config.validate);
-        # OQPSK fleets run the plain locked program with sorting disabled.
+        # Banding is QPSK-geometry only (config.validate); OQPSK fleets
+        # keep sorting disabled.
         self.banding_possible = not cfg.oqpsk
         banded_cfg = (dataclasses.replace(cfg, tau0_band=self.band)
                       if self.banding_possible else None)
@@ -142,7 +132,7 @@ class ServingFleet:
         if all_locked and (not self.sorted_once or self._resort_wanted):
             self._sort_groups()
         # A banded group that starts flagging has streams drifting out of
-        # band: drop back to the plain program and ask for a re-sort.
+        # band: clear its band mark and ask for a re-sort.
         for f in self.groups:
             if f.use_banded and np.any(np.asarray(f.stream_flags)):
                 f.use_banded = False
@@ -223,8 +213,7 @@ class ServingFleet:
             # live lane — the same rule mesh._feed_parked uses for their
             # input): after the renumbering the donor's slot holds a
             # different stream, and a parked carry left evolving from the
-            # OLD mirror point on NEW donor data can drift out of band and
-            # poison the banded kernel's runtime min-anchor.
+            # OLD mirror point on NEW donor data can drift out of band.
             live_idx = np.nonzero(~parked_new[sl])[0]
             parked_idx = np.nonzero(parked_new[sl])[0]
             group_leaves = {k: np.ascontiguousarray(v[sl])

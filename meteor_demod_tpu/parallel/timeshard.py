@@ -1,12 +1,12 @@
 """Sequence (time-block) parallelism: one stream sharded across devices.
 
 The reference is a strictly sequential per-sample recurrence (SURVEY.md §5,
-"long-context / sequence parallelism"). The TPU decomposition splits a long
+"long-context / sequence parallelism"). The decomposition splits a long
 IQ stream along time:
 
 - **FIR (no feedback)**: each device filters its own time shard, importing a
   halo of the last `taps-1` samples from its left neighbor via
-  `jax.lax.ppermute` over ICI — the distributed form of the overlap-save
+  `jax.lax.ppermute` between devices — the distributed form of the overlap-save
   delay-line carry (filter.c:41-42). N-shard output equals 1-device output
   exactly (tests/test_parallel.py).
 - **Feedback loops (AGC/PLL/timing)**: sequential by construction; the carry

@@ -34,11 +34,12 @@ def synth_psk(num_symbols: int,
     so fractional sample-per-symbol ratios like 230400/72000 = 3.2 are exact.
 
     Carrier dynamics (the reference's actual operating regime — a LEO
-    satellite's Doppler ramp, /root/reference/pll.c:99-106 tracks it with
+    satellite's Doppler ramp, the reference's pll.c:99-106 tracks it with
     the loop's frequency integrator): `carrier_ramp_hz_s` adds a linear
     frequency ramp, and `carrier_profile` (a per-sample instantaneous
-    frequency array in Hz, e.g. from `leo_doppler_hz`) adds an arbitrary
-    trajectory; both are additive with `carrier_hz`. The phase is the
+    frequency array in Hz, e.g. from `leo_doppler_hz`, or a callable
+    mapping the sample count to one) adds an arbitrary trajectory; both
+    are additive with `carrier_hz`. The phase is the
     cumulative integral of the instantaneous frequency, so any profile is
     phase-continuous. When both are zero/None the original closed-form
     constant-carrier phase is used, keeping existing fixtures bit-identical.
@@ -103,6 +104,8 @@ def synth_psk(num_symbols: int,
         t = n / samplerate
         f_inst = carrier_hz + carrier_ramp_hz_s * t
         if carrier_profile is not None:
+            if callable(carrier_profile):
+                carrier_profile = carrier_profile(len(x))
             prof = np.asarray(carrier_profile, dtype=np.float64)
             if len(prof) != len(x):
                 raise ValueError(
@@ -133,7 +136,7 @@ def leo_doppler_hz(num_samples: int,
                    time_scale: float = 1.0) -> np.ndarray:
     """Per-sample Doppler shift (Hz) of a LEO pass — the carrier trajectory
     the reference demodulator actually tracks (Meteor-M at ~820 km on
-    137.1/137.9 MHz, /root/reference/README.md:1-9).
+    137.1/137.9 MHz, the reference's README.md:1-9).
 
     Straight-line flyby model: the satellite moves at circular-orbit speed
     v = sqrt(GM/(Re+h)) along a line whose closest approach to the receiver

@@ -61,7 +61,7 @@ class Tui:
         self.w_info.keypad(True)
         try:
             self.w_banner.addstr(
-                0, 0, f"\t~ Meteor M2 LRPT Demodulator (TPU) v{__version__} ~",
+                0, 0, f"\t~ Meteor M2 LRPT Demodulator (JAX) v{__version__} ~",
                 curses.A_BOLD)
         except curses.error:
             pass

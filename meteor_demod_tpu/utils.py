@@ -2,7 +2,26 @@
 
 from __future__ import annotations
 
+import os
 import time
+
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    JAX_COMPILATION_CACHE_DIR, when set, is honoured as it is (JAX reads
+    the variable itself) and nothing else is set. Otherwise the cache is
+    the fixed `.jax_cache/` at the root of the checkout, so every entry
+    point of one checkout shares it."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+    path = os.path.join(_CHECKOUT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def gen_fname(t: float | None = None) -> str:

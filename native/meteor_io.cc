@@ -1,8 +1,8 @@
 // Native IO hot paths for meteor_demod_tpu.
 //
 // The reference implementation's entire I/O path is C (wavfile.c:50-80 sample
-// decode; main.c:305-316 soft-symbol quantize + ring buffering). These are the
-// TPU framework's equivalents for the host-side runtime: branch-free, SIMD-
+// decode; main.c:305-316 soft-symbol quantize + ring buffering). These are
+// this framework's equivalents for the host-side runtime: branch-free, SIMD-
 // vectorizable inner loops invoked through ctypes (io/native.py), with numpy
 // fallbacks when the shared library is unavailable.
 //

@@ -6,7 +6,7 @@ difference per SNR point — the quantitative form of BASELINE.json's
 "soft-symbol agreement % vs reference at fixed SNR".
 
 Usage:
-    METEOR_DEMOD_PLATFORM=cpu python scripts/compare_reference.py [--oqpsk]
+    JAX_PLATFORMS=cpu python scripts/compare_reference.py [--oqpsk]
 
 Builds the reference from /root/reference into /tmp/refbuild if needed.
 """

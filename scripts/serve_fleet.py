@@ -1,10 +1,9 @@
-"""Production serving host: many LRPT streams on one chip, restartable.
+"""Production serving host: many LRPT streams on one card, restartable.
 
-The reference serves one stream per process (/root/reference/main.c:284-329);
-the TPU fleet replaces N such processes with one ServingFleet (tau0-sorted
-banded dispatch groups, straggler parking) — see parallel/serving.py and
-docs/PERF.md for the measured rates. This script is the operational glue a
-deployment needs around it:
+The reference serves one stream per process (main.c:284-329); the fleet
+replaces N such processes with one ServingFleet (dispatch groups,
+straggler parking) — see parallel/serving.py and PERF.md. This script is
+the operational glue a deployment needs around it:
 
 - N inputs (2-channel WAV files and/or synthesized passes) demodulated
   concurrently, one lock-gated .s writer per stream (the reference's ring
@@ -25,8 +24,11 @@ deployment needs around it:
   wall-clock dependent. --park-after-s defaults generous so only
   genuinely dead streams park).
 
+Synthesized passes carry LEO Doppler (sim.leo_doppler_hz), each stream at
+its own point of the pass.
+
 Smoke run (CPU):
-    METEOR_DEMOD_PLATFORM=cpu python scripts/serve_fleet.py \
+    JAX_PLATFORMS=cpu python scripts/serve_fleet.py \
         --synth 16 --dead 1 --seconds 2 --group-size 8 \
         --out-dir /tmp/fleet_out --checkpoint /tmp/fleet.ckpt.npz
 """
@@ -50,7 +52,8 @@ from meteor_demod_tpu.io.wav import decode_iq, open_input       # noqa: E402
 from meteor_demod_tpu.io.writer import SymbolWriter             # noqa: E402
 from meteor_demod_tpu.demod.pipeline import quantize_symbols    # noqa: E402
 from meteor_demod_tpu.parallel.serving import ServingFleet      # noqa: E402
-from meteor_demod_tpu.sim import synth_psk                      # noqa: E402
+from meteor_demod_tpu.sim import leo_doppler_hz, synth_psk      # noqa: E402
+from meteor_demod_tpu.utils import enable_compile_cache         # noqa: E402
 
 
 class _FileSource:
@@ -73,7 +76,7 @@ class _FileSource:
         # Raw-ingest mode (set by main() when every source shares the
         # fleet's integer format): next_block returns the file's raw
         # (L, 2) integer sample pairs, decoded ON DEVICE — 2x/4x less
-        # host->device traffic on the link-bound serving path.
+        # host->device traffic.
         self.raw_dtype = None
         self.raw_pad = 0
 
@@ -117,7 +120,11 @@ class _FileSource:
 
 
 class _SynthSource:
-    """A deterministic synthesized pass (or pure-noise dead antenna)."""
+    """A deterministic synthesized pass (or pure-noise dead antenna):
+    a carrier offset plus the LEO Doppler of a stretch of an overhead
+    pass, centred idx-dependently within +-60 s of closest approach
+    (|Doppler| <= ~1.7 kHz, so offset + Doppler stays inside the
+    default +-fmax sweep)."""
 
     def __init__(self, idx: int, cfg: DemodConfig, n_blocks: int,
                  feed_len: int, dead: bool):
@@ -128,15 +135,16 @@ class _SynthSource:
                           + 1j * rng.standard_normal(n))
                  ).astype(np.complex64)
         else:
-            # Carriers cycle within the acquirable +-fmax band whatever
-            # the fleet size (317 Hz steps folded into +-2400 Hz).
-            c = -2400.0 + (317.0 * idx) % 4800.0
+            # Carrier offsets cycle in 317 Hz steps folded into +-1000 Hz.
+            c = -1000.0 + (317.0 * idx) % 2000.0
+            t_ca = -60.0 + (37.0 * idx) % 120.0
             x, _ = synth_psk(
                 int(n * cfg.symrate / cfg.samplerate) + 64,
                 cfg.samplerate, symrate=cfg.symrate, oqpsk=cfg.oqpsk,
                 carrier_hz=c, amplitude=6000.0,
                 snr_db=(12.0, 15.0, 18.0, 25.0)[idx % 4], seed=idx,
-                carrier_ramp_hz_s=(-30.0, 0.0, 30.0)[idx % 3])
+                carrier_profile=lambda m: leo_doppler_hz(
+                    m, cfg.samplerate, t_ca_s=t_ca))
             x = x[:n]
         self.x = x
         self.block_len = feed_len
@@ -156,7 +164,7 @@ class _SynthSource:
         return b
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--inputs", nargs="*", default=[],
                     help="2-channel WAV files, one per stream")
@@ -207,8 +215,7 @@ def main() -> int:
                     default="auto",
                     help="sample upload format: i16/u8 uploads the raw "
                          "integer stream and decodes on device (2x/4x "
-                         "less host->device traffic — the serving host "
-                         "is ingest-link-bound on tunneled setups). "
+                         "less host->device traffic). "
                          "auto picks i16/u8 when EVERY input file shares "
                          "that format and no synth streams are mixed in")
     ap.add_argument("--until", choices=("shortest", "longest"),
@@ -221,7 +228,8 @@ def main() -> int:
                     help="stop after this many dispatches (chains of "
                          "--chain blocks; 0 = run to EOF); for "
                          "deterministic kill/resume validation")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    enable_compile_cache()
 
     cfg = DemodConfig(samplerate=args.samplerate, block_len=args.block_len)
     feed_len = args.chain * cfg.block_len     # samples per dispatch
@@ -352,8 +360,8 @@ def main() -> int:
     def _sig(_signo, _frame):
         stop["now"] = True
 
-    signal.signal(signal.SIGINT, _sig)
-    signal.signal(signal.SIGTERM, _sig)
+    old_handlers = {s: signal.signal(s, _sig)
+                    for s in (signal.SIGINT, signal.SIGTERM)}
 
     def _write_rows(i: int, sym_a, sym_b, valid, locked_once) -> None:
         """Valid-gate one stream's rows into its lock-gated writer.
@@ -457,8 +465,7 @@ def main() -> int:
                 rate = (blocks * feed_len * n_streams
                         / max(time.time() - t0, 1e-9) / 1e6)
                 print(f"chain {start_block + blocks}: locked {locked}/"
-                      f"{n_streams}, parked {parked}, banded groups "
-                      f"{fleet.banded_groups()}, {rate:.1f} Msamp/s",
+                      f"{n_streams}, parked {parked}, {rate:.1f} Msamp/s",
                       flush=True)
     finally:
         if mid_chain:
@@ -476,6 +483,8 @@ def main() -> int:
         total = sum(w.bytes_out for w in writers)
         print(f"{start_block + blocks} chains served, {total} soft bytes "
               f"across {n_streams} streams", flush=True)
+        for s, h in old_handlers.items():
+            signal.signal(s, h)
     return 0
 
 

@@ -22,10 +22,10 @@ chained-dispatch leg, with:
 
 The span signal is seam-periodic (integer symbols per span) so one
 device-resident span chains into itself indefinitely — the carry evolution
-is honest while the 8 GB of samples never cross the ~MB/s host link.
+is honest while the 8 GB of samples are never uploaded.
 
-Run on the chip:  python scripts/soak.py           (~1 Gsample, minutes)
-CPU smoke:        python scripts/soak.py cpu small (~8 Msample)
+On the GPU:  python scripts/soak.py           (~1 Gsample, minutes)
+CPU smoke:   python scripts/soak.py cpu small (~8 Msample)
 """
 from __future__ import annotations
 
@@ -42,7 +42,6 @@ CPU = "cpu" in sys.argv[1:]
 SMALL = "small" in sys.argv[1:]
 if CPU:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 
 import numpy as np
 import jax.numpy as jnp
@@ -52,6 +51,7 @@ from meteor_demod_tpu.demod.pipeline import egress
 from meteor_demod_tpu.demod.state import init_carry
 from meteor_demod_tpu.dsp.fir import iq_to_f32
 from meteor_demod_tpu.sim import synth_psk
+from meteor_demod_tpu.utils import enable_compile_cache
 
 
 def log(m):
@@ -196,17 +196,14 @@ def sequential_soak(cfg, target_samples):
     x, _ = synth_psk(nsym, cfg.samplerate, carrier_hz=carrier,
                      amplitude=6000.0, snr_db=18.0, seed=11)
     blocks = jnp.asarray(iq_to_f32(x[:span]).reshape(CHAIN, L, 2))
-    wide = _chained_fn(cfg, None)
+    fn = _chained_fn(cfg, None)
     carry = init_carry(cfg)
-    carry, _ = wide(carry, blocks)
-    assert _sync(carry) == 0
-    locked_fn = _chained_fn(cfg, None, locked=not CPU)
-    carry, _ = locked_fn(carry, blocks)
+    carry, _ = fn(carry, blocks)                 # compile + acquire lock
     assert _sync(carry) == 0
     n_disp = max(2, -(-target_samples // span))
     t0 = time.time()
     for d in range(n_disp):
-        carry, _ = locked_fn(carry, blocks)
+        carry, _ = fn(carry, blocks)
         if d % 200 == 199:
             assert _sync(carry) == 0          # periodic flag fence
     assert _sync(carry) == 0
@@ -226,10 +223,11 @@ def main():
     else:
         target, chunks, kb = 1 << 30, 128, 16
         seq_target = 1 << 28
-    t0 = time.time()
-    _ = int(np.sum(egress(jnp.zeros(8, jnp.int32))))   # claim fence
-    log(f"device claim: {time.time()-t0:.1f}s")
-    span_res = span_soak(cfg, target, chunks, kb, "/tmp/soak_ckpt.npz")
+    enable_compile_cache()
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        span_res = span_soak(cfg, target, chunks, kb,
+                             os.path.join(tmp, "soak_ckpt.npz"))
     log(f"span soak: {span_res}")
     seq_res = sequential_soak(cfg, seq_target)
     log(f"sequential soak: {seq_res}")

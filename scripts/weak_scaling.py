@@ -95,10 +95,9 @@ def _worker(argv) -> None:
     run = lambda: fleet.process_local_blocks(rows)
 
     # Warm until the fleet LOCKS so every timed step runs the same
-    # steady-state regime in every process (MultiHostFleet has no
-    # locked-program switch — that is FleetDemodulator-only — but mixing
-    # acquisition and steady-state blocks across the baseline/scaled
-    # runs would skew the ratio), then one whole telemetry period
+    # steady-state regime in every process (mixing acquisition and
+    # steady-state blocks across the baseline/scaled runs would skew the
+    # ratio), then one whole telemetry period
     # (compiles the non-tick program). Timed steps cover whole periods,
     # so the mean holds exactly steps/tel_every refresh ticks regardless
     # of phase.
@@ -188,8 +187,8 @@ def run_overhead(args) -> dict:
 
     fleet = FleetDemodulator(cfg, spd, mesh=make_mesh(jax.devices()[:1]),
                              telemetry_every=te)
-    # Warm until locked (the post-lock switch compiles a new program),
-    # then one whole period (post-lock tick + non-tick programs).
+    # Warm until locked, then one whole period (tick + non-tick
+    # programs).
     warm = 0
     while warm < 64 and not (
             fleet.telemetry is not None

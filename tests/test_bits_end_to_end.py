@@ -26,7 +26,7 @@ SNR_DB = 12.0
 
 
 def _run_cli(wav, out, extra):
-    env = dict(os.environ, METEOR_DEMOD_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     subprocess.run(
         [sys.executable, "-m", "meteor_demod_tpu", "-B", "-q", "-o", out]
         + extra + [wav],

@@ -150,11 +150,10 @@ class TestClosedFormGate:
 
 
 class TestLockedGeometry:
-    """Static invariants of the LOCKED kernel geometry
+    """Static invariants of the LOCKED window geometry
     (config.window_locked_asym / locked_pair_slices) across the supported
-    configuration space — the kernel compiles these as constants, so a
-    violating combination would mis-slice VMEM silently rather than fail
-    loudly."""
+    configuration space — a violating combination would mis-slice a
+    window silently rather than fail loudly."""
 
     def _grid(self):
         from meteor_demod_tpu.config import DemodConfig

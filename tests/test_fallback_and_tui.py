@@ -60,7 +60,7 @@ def test_tui_runs_in_pty(tmp_path):
     out = str(tmp_path / "t.s")
 
     env = dict(os.environ, TERM="xterm-256color",
-               METEOR_DEMOD_PLATFORM="cpu")
+               JAX_PLATFORMS="cpu")
     master, slave = pty.openpty()
     fcntl.ioctl(slave, termios.TIOCSWINSZ, struct.pack("HHHH", 30, 100, 0, 0))
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -200,7 +200,7 @@ def test_cli_end_to_end_stdout(tmp_path):
     x, _ = synth_psk(16000, 230400, carrier_hz=300.0, amplitude=90.0,
                      snr_db=20.0, seed=3)
     raw = encode_iq(x, 8)
-    env = dict(os.environ, METEOR_DEMOD_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, "-m", "meteor_demod_tpu", "--stdout",
          "-s", "230400", "--bps", "8", "-"],
@@ -221,7 +221,7 @@ def test_cli_turbo_flag(tmp_path):
     out = str(tmp_path / "t.s")
     from meteor_demod_tpu.sim import write_wav
     write_wav(wav, x, 230400, 16)
-    env = dict(os.environ, METEOR_DEMOD_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, "-m", "meteor_demod_tpu", "-B", "-q",
          "-T", "4", "-o", out, wav],
@@ -257,7 +257,7 @@ def test_cli_turbo_ingest_parity(tmp_path):
     write_wav(wav, x, 230400, 16)
     # payload = 51200 samples * 4 B = 204800 B = 6.25 x 32768: partial tail.
     assert (os.path.getsize(wav) - 44) % 32768 != 0
-    env = dict(os.environ, METEOR_DEMOD_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     outs = {}
     for name, extra in (("batch", []), ("turbo", ["-T", "4"])):
         out = str(tmp_path / f"{name}.s")
@@ -313,7 +313,7 @@ def test_cli_degenerate_inputs_exit_clean(tmp_path):
     trunc = str(tmp_path / "trunc.wav")
     with open(trunc, "wb") as f:          # header + a partial sample
         f.write(open(tiny, "rb").read()[:51])
-    env = dict(os.environ, METEOR_DEMOD_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
     for src in (tiny, trunc):
@@ -349,7 +349,7 @@ def test_cli_checkpoint_split_capture_bitwise(tmp_path):
     concatenating rtl_sdr segments."""
     x, _ = synth_psk(40000, 230400, carrier_hz=250.0, amplitude=6000.0,
                      snr_db=20.0, seed=7)
-    env = dict(os.environ, METEOR_DEMOD_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     raw_all = str(tmp_path / "all.raw")
     with open(raw_all, "wb") as f:
@@ -384,7 +384,7 @@ def test_cli_checkpoint_split_capture_bitwise(tmp_path):
 def test_cli_checkpoint_rejects_config_mismatch(tmp_path):
     x, _ = synth_psk(8000, 230400, carrier_hz=250.0, amplitude=6000.0,
                      snr_db=20.0, seed=8)
-    env = dict(os.environ, METEOR_DEMOD_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     raw = str(tmp_path / "x.raw")
     with open(raw, "wb") as f:

@@ -80,9 +80,10 @@ def _wait_parked_caught_up(fleet):
 
 def test_straggler_parks_and_fleet_switches(cfg):
     """7 locked streams + 1 noise stream: the straggler parks after
-    park_after ticks, the fleet's switch logic then selects the LOCKED
-    program (previously pinned wide forever), and every non-parked
-    stream's output is bit-identical to a parking-disabled fleet."""
+    park_after ticks, the fleet's lock accounting then covers the
+    non-parked streams only, one device program per telemetry setting
+    serves throughout, and every non-parked stream's output is
+    bit-identical to a parking-disabled fleet."""
     assert len(jax.devices()) == 8
     n_streams, n_blocks, straggler = 8, 16, 5
     data = _mixed_fleet_data(cfg, n_streams, n_blocks, straggler)
@@ -96,13 +97,10 @@ def test_straggler_parks_and_fleet_switches(cfg):
     fleet_outs = _run_fleet(fleet, data, n_blocks)
 
     assert list(fleet.parked_streams()) == [straggler]
-    # The switch now considers non-parked streams only: the locked-program
-    # variant was built and selected (on CPU it compiles the same scan
-    # step, so the selection itself is what we assert).
+    # Lock accounting now covers the non-parked streams only, and parking
+    # builds no program of its own (telemetry every block: one program).
     assert fleet._active_locked == n_streams - 1
-    assert any(k[0] for k in fleet._fns)   # a locked-program variant built
-    # park=False never engaged the locked program.
-    assert not any(k[0] for k in base._fns)
+    assert set(fleet._fns) == set(base._fns) == {True}
 
     # Non-parked streams: bit-identical to the parking-disabled fleet.
     others = [i for i in range(n_streams) if i != straggler]

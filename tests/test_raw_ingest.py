@@ -1,7 +1,6 @@
 """Raw integer ingest: on-device sample decode (mesh.py ingest=i16/u8).
 
-The serving host is ingest-link-bound on tunneled setups (docs/PERF.md);
-uploading the SDR's raw integer stream and decoding on device cuts
+Uploading the SDR's raw integer stream and decoding on device cuts
 host->device traffic 2x (int16) / 4x (uint8). The on-device decode must
 be BIT-EXACTLY io/wav.py decode_iq's math (i16: float cast, exact for
 all int16; u8: float - 128), so a raw-ingest fleet's output is bitwise

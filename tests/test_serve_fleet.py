@@ -19,7 +19,7 @@ SCRIPT = os.path.join(REPO, "scripts", "serve_fleet.py")
 
 
 def _run(out_dir, extra, timeout=600):
-    env = dict(os.environ, METEOR_DEMOD_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     return subprocess.run(
         [sys.executable, SCRIPT, "--synth", "8", "--dead", "1",
          "--seconds", "1.5", "--group-size", "8", "--block-len", "2048",

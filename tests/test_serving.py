@@ -1,14 +1,11 @@
 """ServingFleet: tau0-sorted multi-group serving (parallel/serving.py).
 
-The r5 banded-window kernel measurement (docs/PERF.md) needs a host policy
-to be usable: sort streams by predicted first-fire tick at the locked
-switch so every dispatch group spans a narrow tau0 band. These tests pin
+The host sorts streams by predicted first-fire tick once the fleet is
+locked, so every dispatch group spans a narrow tau0 band. These tests pin
 the POLICY on the CPU mesh: sorting happens at the switch, group bands are
-achieved and enable the banded program selection, stream identity survives
-the renumbering, and outputs are bit-identical to unsorted same-width
-groups (on CPU the scan step is lane-permutation invariant, so the policy
-must be output-neutral; the kernel-level banded window itself is covered
-by tests/test_pallas_kernel.py::test_pallas_tau0_banded_window)."""
+achieved and marked, stream identity survives the renumbering, and
+outputs are bit-identical to unsorted same-width groups (the step is
+lane-permutation invariant, so the policy must be output-neutral)."""
 
 import numpy as np
 import pytest
